@@ -1,6 +1,6 @@
 // Native host-side runtime for octane_tpu.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); this library owns the
+// The accelerator owns the compute path (JAX/XLA); this library owns the
 // host-side hot loops around it, replacing what the reference did with
 // per-pixel C++ host code (oct_interp.cc:424-457 count re-quantization,
 // the staging loops in every *_cuda.cu wrapper):

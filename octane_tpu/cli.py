@@ -11,12 +11,13 @@ import sys
 
 from octane_tpu.config import OFConfig
 from octane_tpu.pipeline import run_pipeline
+from octane_tpu.utils.cache import use_compile_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="octane_tpu",
-        description=("OCTANE-TPU: TPU-native optical flow / atmospheric motion "
+        description=("OCTANE in JAX: dense optical flow / atmospheric motion "
                      "vectors for GOES-R imagery"),
     )
     p.add_argument("-i1", required=True, help="first GOES-R netCDF file")
@@ -55,8 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max CG iterations / SOR sweeps")
     p.add_argument("-solver", default="pcg", choices=("pcg", "sor"),
                    help="pcg: reference-exact Jacobi-PCG (default); sor: "
-                        "production red-black SOR (temporally blocked "
-                        "Pallas kernel, ~3x faster, parity in PARITY.md)")
+                        "red-black SOR (parity in docs/PARITY.md)")
     p.add_argument("-omega", type=float, default=1.9,
                    help="SOR over-relaxation factor")
     p.add_argument("-brox", action="store_true", help="disable Zimmer normalization")
@@ -72,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-normmax3", type=float, default=None)
     p.add_argument("-normmin3", type=float, default=None)
     p.add_argument("-mesh", default=None,
-                   help="spatial device mesh ROWSxCOLS (TPU-only, e.g. 2x4)")
+                   help="spatial device mesh ROWSxCOLS (e.g. 2x2)")
     p.add_argument("-coordinator", default=None,
                    help="multi-host coordinator address host:port")
     p.add_argument("-nprocs", type=int, default=None,
@@ -115,6 +115,7 @@ def args_to_config(a: argparse.Namespace) -> OFConfig:
 def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
     cfg = args_to_config(a)
+    use_compile_cache()
     ch2 = (a.ic21, a.ic22) if a.ic21 and a.ic22 else None
     ch3 = (a.ic31, a.ic32) if a.ic31 and a.ic32 else None
     if a.nprocs:

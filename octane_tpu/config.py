@@ -64,15 +64,12 @@ class OFConfig:
     out_raw: bool = True
     out_rad: bool = True
     out_ctp: bool = True
-    # --- TPU execution -------------------------------------------------------
+    # --- execution -----------------------------------------------------------
     mesh_shape: Tuple[int, int] = (1, 1)   # (rows, cols) spatial device mesh
     halo_warp: int = 16                    # warp-gather halo in sharded mode (px per side)
-    use_pallas: bool = True                # enable Pallas kernels on TPU backends
-    solver: str = "pcg"                    # "pcg" (reference-exact) | "sor"
-                                           # (red-black, temporally blocked
-                                           # Pallas kernel -- the production
-                                           # relaxer, ~3x faster; parity
-                                           # evidence in PARITY.md)
+    solver: str = "pcg"                    # "pcg" (reference-exact Jacobi-PCG)
+                                           # | "sor" (red-black SOR; parity
+                                           # evidence in docs/PARITY.md)
     sor_omega: float = 1.9                 # SOR over-relaxation factor
 
     def __post_init__(self):

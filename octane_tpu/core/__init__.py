@@ -1,6 +1,6 @@
 """Core numerics: sampling, blurring, resampling, gradients, robust penalties.
 
-These are the TPU-native equivalents of the reference's L1 numerics utilities
+These are the equivalents of the reference's L1 numerics utilities
 (oct_bicubic.cc, oct_binterp.cc, oct_gaussian.cc, oct_zoom.cc,
 oct_normalize_geo.cc, include/oct_bc.h) plus the device copies embedded in
 oct_variational_optical_flow.cu.  All functions are pure, jit-friendly and

@@ -1,6 +1,6 @@
 """4th-order central differences with clamped boundaries.
 
-TPU-native equivalent of oct_compgrad_cu
+Equivalent of oct_compgrad_cu
 (oct_variational_optical_flow.cu:409-449):
 
     df/dx = (-f[i+2] + 8 f[i+1] - 8 f[i-1] + f[i-2]) / 12

@@ -1,6 +1,6 @@
 """Bilinear and Catmull-Rom bicubic sampling.
 
-TPU-native equivalents of oct_binterp.cc, oct_bicubic.cc and the device
+Equivalents of oct_binterp.cc, oct_bicubic.cc and the device
 copies in oct_variational_optical_flow.cu:56-71, 229-309.  Sample positions
 may be traced arrays (warping) or trace-time constants (zooming); either way
 the 4/16-tap gathers vectorize over the whole grid.

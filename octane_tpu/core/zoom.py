@@ -19,6 +19,7 @@ import math
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 from octane_tpu.core.gaussian import (
     gaussian_kernel_1d,
@@ -27,6 +28,11 @@ from octane_tpu.core.gaussian import (
     ingest_filtsize,
 )
 from octane_tpu.core.interp import bicubic_sample
+
+# The resampling matmuls must be float32-exact: at default precision a GPU
+# may run them in TF32 (10-bit mantissa), which would move a one-hot
+# "selection" of a 0-255 radiance by up to ~0.1.
+_EXACT = lax.Precision.HIGHEST
 
 
 def zoom_size(n: int, factor: float) -> int:
@@ -48,7 +54,7 @@ def _catmull_matrix_1d(n_in: int, positions: np.ndarray,
     clamped independently (clamped taps accumulate their weight onto the
     edge sample), the fraction is measured from the clamped base index.
     Expressing static-position resampling as a matrix turns it into a
-    matmul -- MXU work that XLA's SPMD partitioner shards natively.
+    matmul, which XLA's SPMD partitioner shards natively.
 
     The tap indices/weights are computed host-side exactly as before (tiny
     (n_out, 4) constants) but the DENSE matrix is materialized on device
@@ -119,9 +125,9 @@ def pyramid_downsample(img: jnp.ndarray, factor: float,
     jj = np.clip(np.trunc(np.minimum(np.arange(nyy), tny - 1).astype(np.float32)
                           / np.float32(factor)).astype(np.int64), 0, th - 1)
     out = jnp.einsum("yh,...hw->...yw", _onehot_rows(jj, h), blurred,
-                     preferred_element_type=jnp.float32)
+                     precision=_EXACT, preferred_element_type=jnp.float32)
     return jnp.einsum("xw,...yw->...yx", _onehot_rows(ii, w), out,
-                      preferred_element_type=jnp.float32)
+                      precision=_EXACT, preferred_element_type=jnp.float32)
 
 
 def zoom_in_flow(flow: jnp.ndarray, new_hw, scale_factor: float,
@@ -131,7 +137,7 @@ def zoom_in_flow(flow: jnp.ndarray, new_hw, scale_factor: float,
     Bicubic at i2 = ii/fx - (0.5 - 0.5/fx) (half-pixel centre offset), then
     divided by ``scale_factor`` to convert displacements to the finer grid
     (zoom_in, oct_variational_optical_flow.cu:450-466).  Separable
-    interpolation matrices -> two matmuls (MXU, GSPMD-shardable).
+    interpolation matrices -> two matmuls (GSPMD-shardable).
 
     With ``true_in``/``true_out`` set (mesh-divisibility padding), the
     positions and the fx/fy ratios come from the TRUE level sizes -- so true
@@ -151,9 +157,9 @@ def zoom_in_flow(flow: jnp.ndarray, new_hw, scale_factor: float,
     ry = _catmull_matrix_1d(h, j2, clamp_n=tih)
     rx = _catmull_matrix_1d(w, i2, clamp_n=tiw)
     out = jnp.einsum("yh,...hw->...yw", ry, flow,
-                     preferred_element_type=jnp.float32)
+                     precision=_EXACT, preferred_element_type=jnp.float32)
     out = jnp.einsum("xw,...yw->...yx", rx, out,
-                     preferred_element_type=jnp.float32)
+                     precision=_EXACT, preferred_element_type=jnp.float32)
     return out / jnp.float32(scale_factor)
 
 

@@ -1,6 +1,6 @@
 """Optical-flow engines: coarse-to-fine variational solver and patch match.
 
-TPU-native redesign of oct_variational_optical_flow.cu (the cooperative-groups
+A redesign of oct_variational_optical_flow.cu (the cooperative-groups
 mega-kernel becomes a per-level jitted program: XLA dataflow replaces the ~50
 grid barriers, the CSR Euler-Lagrange system becomes a matrix-free coupled
 5-point stencil, and the CG dot products become jnp reductions / psum) and of

@@ -8,8 +8,7 @@ barriers per iteration are implicit in XLA dataflow.  Same math: x0 = 0,
 r = b, M = diag(A), stop on ||r||^2 <= tol or ``iters`` iterations.
 
 A red-black SOR relaxer is provided as an alternative that needs no global
-reductions except for the (optional) convergence check -- it shards better
-at very large mesh sizes.
+reductions except for the convergence check.
 """
 
 from __future__ import annotations
@@ -83,28 +82,6 @@ def pcg_solve(
     return out.xu, out.xv
 
 
-def sor_rdet(sys):
-    """Reciprocal determinant of the local 2x2 block (a1 a2; a2 a4).
-    The division is sweep-invariant, so it is hoisted out of the sweep
-    loop; shared by the XLA red-black sweep and the Pallas multi-sweep
-    kernel (which takes it as an input plane) so both paths consume the
-    same plane when composed in one program.
-
-    The ``optimization_barrier`` wrappers DISCOURAGE (but cannot
-    guarantee: XLA deletes the barrier late in its pipeline -- the
-    optimized HLO of both the CPU and TPU backends contains zero
-    ``opt-barrier`` ops -- so codegen-level FMA contraction can still
-    differ between separately compiled programs) context-dependent
-    contraction of ``a1*a4 - a2*a2``.  Bit-exactness claims between the
-    XLA sweep and the Pallas kernel are therefore NOT made across
-    separately compiled programs; see ops.pallas.sor for the exactness
-    contract that IS made (same-executable blocking invariance) and the
-    ulp-bounded cross-program relationship."""
-    m1 = jax.lax.optimization_barrier(sys.a1 * sys.a4)
-    m2 = jax.lax.optimization_barrier(sys.a2 * sys.a2)
-    return jnp.float32(1.0) / (m1 - m2)
-
-
 def sor_solve(
     sys,
     tol: float,
@@ -130,8 +107,15 @@ def sor_solve(
     ii = jnp.arange(w)[None, :]
     red = ((ii + jj) % 2 == 0)
 
-    # Hoisted reciprocal determinant (see sor_rdet).
-    rdet = sor_rdet(sys)
+    # Reciprocal determinant of the local 2x2 block (a1 a2; a2 a4), hoisted
+    # out of the sweep loop.  The optimization_barrier wrappers DISCOURAGE
+    # (but cannot guarantee: XLA deletes the barrier late in its pipeline,
+    # so codegen-level FMA contraction can still differ between separately
+    # compiled programs) context-dependent contraction of a1*a4 - a2*a2;
+    # two separately compiled programs therefore agree to ulps, not bitwise.
+    m1 = jax.lax.optimization_barrier(sys.a1 * sys.a4)
+    m2 = jax.lax.optimization_barrier(sys.a2 * sys.a2)
+    rdet = jnp.float32(1.0) / (m1 - m2)
 
     def colour_sweep(du, dv, mask):
         au, av = apply_stencil(sys, du, dv, true_hw=true_hw)
@@ -139,7 +123,7 @@ def sor_solve(
         ru = sys.bu - au
         rv = sys.bv - av
         # barrier-wrapped products: best-effort contraction pinning only
-        # (XLA deletes the barrier late; see sor_rdet's docstring)
+        # (XLA deletes the barrier late; see rdet above)
         t1, t2, t3, t4 = jax.lax.optimization_barrier(
             (sys.a4 * ru, sys.a2 * rv, sys.a1 * rv, sys.a2 * ru))
         ndu = (t1 - t2) * rdet

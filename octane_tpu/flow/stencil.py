@@ -8,8 +8,9 @@ The reference assembles a 2N x 2N CSR matrix whose u-row for pixel (i, j) is
 folding -- at an edge the out-of-range neighbour coefficient is added onto the
 opposite interior neighbour (oct_variational_optical_flow.cu:868-1077).
 Here the same operator is applied matrix-free: the coefficients live in seven
-(H, W) fields and the SpMV is six shifted multiply-adds, which is what a TPU
-VPU wants and what shards cleanly with halo exchange.
+(H, W) fields and the SpMV is six shifted multiply-adds, which fuses into one
+elementwise pass, moves fewer bytes than CSR, and shards cleanly with halo
+exchange.
 
 ``assemble`` reproduces the data/smoothness-term math of the assembly loop
 (oct_variational_optical_flow.cu:611-1097) exactly: bilinear warping with

@@ -1,6 +1,6 @@
 """File ingest: GOES-R L1b, polar/mercator grids, CLAVR-x CTH, first guess.
 
-TPU-native equivalent of oct_fileread.cc.  GOES-R L1b "netCDF4" files are
+Equivalent of oct_fileread.cc.  GOES-R L1b "netCDF4" files are
 HDF5 containers, so ingest is built on h5py (no libnetcdf dependency in this
 image); variables and attributes are read by the same names the reference
 uses (oct_fileread.cc:99-263).  Navigation + calibration + normalization run

@@ -1,6 +1,6 @@
 """GOES-R ABI fixed-grid navigation and radiance calibration.
 
-TPU-native equivalent of oct_navcal_cuda.cu (per-pixel inverse navigation of
+Equivalent of oct_navcal_cuda.cu (per-pixel inverse navigation of
 scan angles to lat/lon on the GRS80 ellipsoid, Planck / kappa calibration,
 limb filtering and normalization) and of the forward navigation in
 oct_pix2uv_cuda.cu:222-263.  All functions are elementwise jnp programs --

@@ -1,6 +1,6 @@
 """Pixel-displacement <-> wind (m/s) conversion.
 
-TPU-native equivalent of oct_pix2uv_cuda.cu: the forward direction navigates
+Equivalent of oct_pix2uv_cuda.cu: the forward direction navigates
 each pixel and its displaced position to lat/lon, then measures independent
 zonal and meridional haversine distances divided by the frame interval
 (:27-172); the inverse direction advects each pixel's lat/lon along a

@@ -1,7 +1,7 @@
 """Halo exchange primitives (used inside shard_map).
 
 Each shard pads its local block with ``halo`` rows/columns from its mesh
-neighbours via `lax.ppermute` (ICI neighbour traffic); shards on the global
+neighbours via `lax.ppermute`; shards on the global
 boundary fill the missing halo by edge replication, which is safe because
 globally-clamped positions never index past the true image edge.
 """

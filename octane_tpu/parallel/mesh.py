@@ -11,8 +11,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def make_mesh(shape: Tuple[int, int] = None, devices=None) -> Mesh:
     """Create a 2-D ("dy", "dx") mesh over the available devices.
 
-    With no ``shape``, uses (1, n_devices): row-contiguous sharding keeps
-    halo exchange on ICI neighbours for a 1-D slice topology.
+    With no ``shape``, uses (1, n_devices).  The devices of one host are
+    joined all to all, so the shape follows the algorithm alone.
     """
     devices = devices if devices is not None else jax.devices()
     n = len(devices)

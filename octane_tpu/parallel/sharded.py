@@ -71,21 +71,12 @@ def make_sharded_warp(mesh, global_hw: Tuple[int, int], halo: int,
     samples from a halo-padded local block inside shard_map, guarded by a
     runtime max-|flow| check with a dense-gather fallback.
 
-    On TPU the local sampling runs the Pallas warp kernel over the padded
-    block (positions shifted into the halo frame): halo edge-replication
-    makes field-frame clamped samples equal the reference's global-clamp
-    samples everywhere EXCEPT the sub-pixel extrapolation bands just inside
-    the true right/bottom edges (global px in (tw-1, tw)), which are
-    patched exactly from a thin strip evaluated with the XLA gather
-    formula.  Parity vs the XLA path is float-round-off (the halo-frame
-    position shift rounds ~1 ulp differently), not bitwise.  On CPU the
-    XLA local gather runs directly.
+    Each shard evaluates the reference's globally clamped bilinear gather
+    on its own block, with source indices shifted into the halo frame; the
+    samples equal warp_bilinear_dense's while max |flow| <= halo - 2.
 
     ``global_hw`` is the (padded) array shape; ``true_hw`` the true image
     dims used for the reference's conditional position clamps."""
-    from octane_tpu.ops.pallas.warp import make_pallas_warp, \
-        pallas_warp_available
-
     gh, gw = global_hw
     th, tw = global_hw if true_hw is None else true_hw
     key = (id(mesh), global_hw, (th, tw), halo)
@@ -100,27 +91,29 @@ def make_sharded_warp(mesh, global_hw: Tuple[int, int], halo: int,
         # back to the dense gather, which GSPMD handles with collectives
         return None
     reach_i = halo - 2
-    pk = None
-    if pallas_warp_available((hl, wl)):
-        # row-window slack must absorb the +-reach in-block spread
-        pk = make_pallas_warp((hl, wl), max_disp_v=reach_i + 4,
-                              field_shape=(hl + 2 * halo, wl + 2 * halo))
+    wp = wl + 2 * halo
+    hp2 = hl + 2 * halo
 
-    def _global_gather(fpad, u_c, v_c, gy0, gx0, oh, ow, orow, ocol):
-        """The reference's globally-clamped bilinear gather evaluated on an
-        (oh, ow) output window at local origin (orow, ocol); u_c/v_c are
-        the already reach-clipped full-block displacements."""
-        k = fpad.shape[0]
-        wp = wl + 2 * halo
-        hp2 = hl + 2 * halo
-        us = lax.dynamic_slice(u_c, (orow, ocol), (oh, ow))
-        vs = lax.dynamic_slice(v_c, (orow, ocol), (oh, ow))
-        ii = gx0 + (ocol + jnp.arange(ow, dtype=jnp.int32)
-                    ).astype(jnp.float32)[None, :]
-        jj = gy0 + (orow + jnp.arange(oh, dtype=jnp.int32)
-                    ).astype(jnp.float32)[:, None]
-        px = ii + us
-        py = jj + vs
+    @functools.partial(
+        jax.shard_map, mesh=mesh,
+        in_specs=(P(None, "dy", "dx"), P("dy", "dx"), P("dy", "dx")),
+        out_specs=(P(None, "dy", "dx"), P("dy", "dx"), P("dy", "dx")),
+    )
+    def halo_warp(fields, u, v):
+        gy0 = (lax.axis_index("dy") * hl).astype(jnp.float32)
+        gx0 = (lax.axis_index("dx") * wl).astype(jnp.float32)
+        ii = gx0 + jnp.arange(wl, dtype=jnp.float32)[None, :]
+        jj = gy0 + jnp.arange(hl, dtype=jnp.float32)[:, None]
+        px = ii + u
+        py = jj + v
+        bc_x = (px < 0.0) | (px >= tw)
+        bc_y = (py < 0.0) | (py >= th)
+        # the reach clamp is a no-op whenever the guard picked this path
+        reach = float(reach_i)
+        px = ii + jnp.clip(u, -reach, reach)
+        py = jj + jnp.clip(v, -reach, reach)
+        fpad = halo_pad2d(fields, halo)                 # (K, hl+2h, wl+2h)
+
         px = jnp.where(px < 0.0, 0.0, jnp.where(px >= tw, float(tw - 1), px))
         py = jnp.where(py < 0.0, 0.0, jnp.where(py >= th, float(th - 1), py))
         iv1 = jnp.minimum(px.astype(jnp.int32), tw - 2)
@@ -131,71 +124,15 @@ def make_sharded_warp(mesh, global_hw: Tuple[int, int], halo: int,
         p4 = py - jv1.astype(jnp.float32)
         li = jnp.clip(iv1 - gx0.astype(jnp.int32) + halo, 0, wp - 2)
         lj = jnp.clip(jv1 - gy0.astype(jnp.int32) + halo, 0, hp2 - 2)
+        k = fpad.shape[0]
         flat = fpad.reshape(k, -1)
         idx = (lj * wp + li).reshape(-1)
 
         def take(off):
-            return jnp.take(flat, idx + off, axis=1).reshape(k, oh, ow)
+            return jnp.take(flat, idx + off, axis=1).reshape(k, hl, wl)
 
         f11, f21, f12, f22 = take(0), take(1), take(wp), take(wp + 1)
-        return p3 * (p1 * f11 + p2 * f21) + p4 * (p1 * f12 + p2 * f22), \
-            px, py
-
-    @functools.partial(
-        jax.shard_map, mesh=mesh,
-        in_specs=(P(None, "dy", "dx"), P("dy", "dx"), P("dy", "dx")),
-        out_specs=(P(None, "dy", "dx"), P("dy", "dx"), P("dy", "dx")),
-        check_vma=False,           # pallas_call out_shapes carry no vma
-    )
-    def halo_warp(fields, u, v):
-        gy0 = (lax.axis_index("dy") * hl).astype(jnp.float32)
-        gx0 = (lax.axis_index("dx") * wl).astype(jnp.float32)
-        ii = gx0 + jnp.arange(wl, dtype=jnp.float32)[None, :]
-        jj = gy0 + jnp.arange(hl, dtype=jnp.float32)[:, None]
-        px_true = ii + u
-        py_true = jj + v
-        bc_x = (px_true < 0.0) | (px_true >= tw)
-        bc_y = (py_true < 0.0) | (py_true >= th)
-        # the reach clamp is a no-op whenever the guard picked this path
-        reach = float(reach_i)
-        u_c = jnp.clip(u, -reach, reach)
-        v_c = jnp.clip(v, -reach, reach)
-        fpad = halo_pad2d(fields, halo)                 # (K, hl+2h, wl+2h)
-
-        if pk is None:
-            samples, _, _ = _global_gather(
-                fpad, u_c, v_c, gy0, gx0, hl, wl, 0, 0)
-            return samples, bc_x, bc_y
-
-        # Pallas path: positions in the padded-field frame
-        fh = jnp.float32(halo)
-        samples, _, _ = pk(fpad, u_c + fh, v_c + fh)
-
-        # exact patch of the sub-pixel extrapolation bands at the global
-        # right/bottom edges: only output pixels within reach of the band
-        # can sample into it, so a thin strip suffices (devices not
-        # containing the band apply an all-false mask)
-        def patch(samples, axis):
-            sw = min(reach_i + 3, wl if axis == 1 else hl)
-            g0 = gx0 if axis == 1 else gy0
-            tn = tw if axis == 1 else th
-            full = wl if axis == 1 else hl
-            start = jnp.clip((tn - 1 - reach_i) - g0.astype(jnp.int32),
-                             0, full - sw).astype(jnp.int32)
-            zero = jnp.int32(0)
-            orow, ocol = (zero, start) if axis == 1 else (start, zero)
-            oh, ow = (hl, sw) if axis == 1 else (sw, wl)
-            fix, px_s, py_s = _global_gather(
-                fpad, u_c, v_c, gy0, gx0, oh, ow, orow, ocol)
-            pos = px_s if axis == 1 else py_s
-            band = (pos > tn - 1) & (pos < tn)
-            sub = lax.dynamic_slice(samples, (zero, orow, ocol),
-                                    (samples.shape[0], oh, ow))
-            sub = jnp.where(band[None], fix, sub)
-            return lax.dynamic_update_slice(samples, sub, (zero, orow, ocol))
-
-        samples = patch(samples, 1)
-        samples = patch(samples, 0)
+        samples = p3 * (p1 * f11 + p2 * f21) + p4 * (p1 * f12 + p2 * f22)
         return samples, bc_x, bc_y
 
     reach = jnp.float32(reach_i)
@@ -220,7 +157,7 @@ def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh,
                          true_shape=None):
     """One jitted SPMD program for the whole coarse-to-fine solve over the
     mesh (single dispatch; XLA inserts halo collectives for the stencils
-    and the shard_map warp kernels handle the gathers).
+    and the shard_map warp handles the gathers).
 
     ``shape`` is the (mesh-divisible, possibly padded) array shape;
     ``true_shape`` the true image dims (None when equal)."""
@@ -231,7 +168,7 @@ def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh,
     key = (id(mesh), shape, ts, nchan, cfg.alpha, cfg.lambda_, cfg.lambdac,
            cfg.scale_factor, cfg.kiters, cfg.liters, cfg.cgiters,
            cfg.gnc_steps, cfg.dozim, cfg.solver, cfg.sor_omega, cfg.cg_tol,
-           cfg.halo_warp, cfg.use_pallas)
+           cfg.halo_warp)
     if key in _sharded_program_cache:
         return _sharded_program_cache[key]
 
@@ -239,7 +176,6 @@ def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh,
     ry = mesh.shape["dy"]
     rx = mesh.shape["dx"]
     warp_fns = {}
-    cg_fns = {}
     for k in range(cfg.kiters):
         factor = float(np.float32(cfg.scale_factor) ** (cfg.kiters - k - 1))
         nxx, nyy = zoom_size(w, factor), zoom_size(h, factor)
@@ -249,33 +185,18 @@ def sharded_flow_program(cfg: OFConfig, shape, nchan: int, mesh,
                                    true_hw=lvl_true)
             if wf is not None:
                 warp_fns[k] = wf
-        if cfg.use_pallas and ry * rx > 1:
-            lt = lvl_true if ts is not None else None
-            if cfg.solver == "pcg":
-                from octane_tpu.parallel.cg import (
-                    make_sharded_fused_cg, sharded_cg_available)
-                if sharded_cg_available((nyy, nxx), ry * rx):
-                    cg_fns[k] = make_sharded_fused_cg(mesh, true_hw=lt)
-            else:
-                from octane_tpu.parallel.sor import (
-                    make_sharded_fused_sor, sharded_sor_available)
-                if sharded_sor_available((nyy, nxx), ry * rx):
-                    cg_fns[k] = make_sharded_fused_sor(
-                        mesh, omega=cfg.sor_omega, true_hw=lt)
 
     fsh = flow_sharding(mesh)
     program = jax.jit(
         functools.partial(_coarse_to_fine, cfg=cfg, warp_fns=warp_fns,
-                          true_shape=ts, cg_fns=cg_fns or None),
+                          true_shape=ts),
         out_shardings=(fsh, fsh),
     )
     # structural metadata for dry runs / debugging: which levels compiled
-    # the halo-warp shard_map and the banded fused-CG kernels
+    # the halo-warp shard_map
     program.warp_levels = frozenset(warp_fns)
-    program.cg_levels = frozenset(cg_fns)
     global last_program_info
     last_program_info = {"warp_levels": program.warp_levels,
-                         "cg_levels": program.cg_levels,
                          "kiters": cfg.kiters}
     _sharded_program_cache[key] = program
     return program

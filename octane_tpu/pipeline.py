@@ -1,6 +1,6 @@
 """End-to-end pipeline: ingest -> flow -> navigation -> products.
 
-TPU-native equivalent of the reference's main() orchestration
+Equivalent of the reference's main() orchestration
 (src/main.cc:398-480): read the image pair (plus optional CTH, first guess
 and extra channels), compute flow, write the product file, and optionally
 synthesize temporally interpolated frames.

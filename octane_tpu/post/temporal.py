@@ -1,6 +1,6 @@
 """Temporal frame interpolation (Baker et al. 2011 style).
 
-TPU-native redesign of oct_interp.cc.  The serial forward-splat with
+A redesign of oct_interp.cc.  The serial forward-splat with
 color-constancy conflict resolution (oct_warpflow, :17-63) becomes three
 scatter-min passes (min cost, then min scan-order among cost ties, then the
 winner writes its flow), which reproduces the reference's "first writer in

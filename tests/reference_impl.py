@@ -589,3 +589,74 @@ def variational_flow_matfree(geo1, geo2, u0, v0, alpha=5.0, lam=1.0,
         u, v = solve_level_matfree(g1, g2, u, v, uhat, vhat, alpha, lam, lc,
                                    liters, cgiters, tol, dozim)
     return u, v
+
+
+def sor_redblack(A, tol, iters, omega=1.9):
+    """Loop-level red-black SOR on the matrix-free operator, the relaxer
+    flow.cg.sor_solve implements.  From x = 0, each iteration visits the
+    red pixels ((i + j) even), then the black ones, and replaces each
+    pixel's (u, v) by the over-relaxed exact solution of its 2x2 block
+    (a1 a2; a2 a4) for the current residual.  A red pixel's neighbours are
+    all black, so visiting one colour in raster order equals updating it
+    at once.  The stopping test reads the full-grid ||b - A x||^2 that the
+    previous iteration's red half-sweep saw (its incoming iterate; ||b||^2
+    before the first), or stops after ``iters`` iterations.
+
+    Returns (du, dv, iterations run)."""
+    h, w = A["a1"].shape
+    xu = np.zeros((h, w), F)
+    xv = np.zeros((h, w), F)
+    resid = F(np.vdot(A["bu"], A["bu"]) + np.vdot(A["bv"], A["bv"]))
+    om = F(omega)
+    k = 0
+    while resid > tol and k < iters:
+        au, av = apply_stencil_np(A, xu, xv)
+        ru = (A["bu"] - au).astype(F)
+        rv = (A["bv"] - av).astype(F)
+        resid = F(np.vdot(ru, ru) + np.vdot(rv, rv))
+        for colour in (0, 1):
+            for j in range(h):
+                jN = j - 1 if j > 0 else 1
+                jS = j + 1 if j < h - 1 else h - 2
+                for i in range((j + colour) % 2, w, 2):
+                    iW = i - 1 if i > 0 else 1
+                    iE = i + 1 if i < w - 1 else w - 2
+                    a1, a2, a4 = A["a1"][j, i], A["a2"][j, i], A["a4"][j, i]
+                    a5, a6, a7, a8 = (A["a5"][j, i], A["a6"][j, i],
+                                      A["a7"][j, i], A["a8"][j, i])
+                    nu = (a5 * xu[j, iW] + a7 * xu[j, iE]
+                          + a6 * xu[jN, i] + a8 * xu[jS, i])
+                    nv = (a5 * xv[j, iW] + a7 * xv[j, iE]
+                          + a6 * xv[jN, i] + a8 * xv[jS, i])
+                    r_u = A["bu"][j, i] - (a1 * xu[j, i] + a2 * xv[j, i] + nu)
+                    r_v = A["bv"][j, i] - (a2 * xu[j, i] + a4 * xv[j, i] + nv)
+                    rdet = F(1.0) / (a1 * a4 - a2 * a2)
+                    xu[j, i] += om * ((a4 * r_u - a2 * r_v) * rdet)
+                    xv[j, i] += om * ((a1 * r_v - a2 * r_u) * rdet)
+        k += 1
+    return xu, xv, k
+
+
+def warp_bilinear(fields, u, v):
+    """Bilinear samples of a (K, H, W) stack at (i + u, j + v) with the
+    solver's position clamps (ref :727-758, the sampling inside the
+    assembly loop above).  Returns (samples, bc_x, bc_y)."""
+    k_, h, w = fields.shape
+    out = np.zeros((k_, h, w), F)
+    bcx = np.zeros((h, w), bool)
+    bcy = np.zeros((h, w), bool)
+    for j in range(h):
+        for i in range(w):
+            iv, bcx[j, i] = bc_f(F(i) + u[j, i], w)
+            jv, bcy[j, i] = bc_f(F(j) + v[j, i], h)
+            iv1 = min(int(iv), w - 2)
+            jv1 = min(int(jv), h - 2)
+            p1 = F(iv1 + 1) - F(iv)
+            p2 = F(iv) - F(iv1)
+            p3 = F(jv1 + 1) - F(jv)
+            p4 = F(jv) - F(jv1)
+            for c in range(k_):
+                a = fields[c]
+                out[c, j, i] = p3 * (p1 * a[jv1, iv1] + p2 * a[jv1, iv1 + 1]) \
+                    + p4 * (p1 * a[jv1 + 1, iv1] + p2 * a[jv1 + 1, iv1 + 1])
+    return out, bcx, bcy

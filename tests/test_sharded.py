@@ -51,12 +51,25 @@ class TestHalo:
 
 class TestShardedWarp:
     def test_matches_dense_for_small_flow(self):
+        """Within reach the halo gather equals the dense gather."""
+        self._check_against_dense(edge_bands=False)
+
+    def test_matches_dense_in_edge_bands(self):
+        """Samples pushed into the sub-pixel extrapolation bands just inside
+        the global right/bottom edges (px in (w-1, w), py in (h-1, h))."""
+        self._check_against_dense(edge_bands=True)
+
+    @staticmethod
+    def _check_against_dense(edge_bands):
         mesh = make_mesh((2, 4))
         h, w = 32, 64
         rng = np.random.default_rng(1)
         fields = rng.normal(0, 1, (3, h, w)).astype(np.float32)
         u = rng.uniform(-2.5, 2.5, (h, w)).astype(np.float32)
         v = rng.uniform(-2.5, 2.5, (h, w)).astype(np.float32)
+        if edge_bands:
+            u[:, -1] = 0.7
+            v[-1, :] = 0.4
         want, bx, by = warp_bilinear_dense(
             jnp.asarray(fields), jnp.asarray(u), jnp.asarray(v))
         warp = make_sharded_warp(mesh, (h, w), halo=6)
@@ -94,6 +107,71 @@ class TestShardedWarpReachGuard:
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=1e-6, atol=1e-6)
         np.testing.assert_array_equal(np.asarray(gbx), np.asarray(bx))
+
+
+def _system(h, w, quad, seed=1):
+    from octane_tpu.flow.stencil import StencilSystem
+
+    rng = np.random.default_rng(seed)
+
+    def arr(lo, hi):
+        return jnp.asarray(rng.uniform(lo, hi, (h, w)).astype(np.float32))
+
+    offd = ((jnp.float32(-1),) * 4 if quad
+            else tuple(-arr(0.3, 1.0) for _ in range(4)))
+    return StencilSystem(arr(4.5, 9.0), arr(-0.2, 0.2), arr(4.5, 9.0),
+                         *offd, arr(-100, 100), arr(-100, 100))
+
+
+def _shard(sysm, mesh):
+    fsh = flow_sharding(mesh)
+    return type(sysm)(*(jax.device_put(a, fsh) if a.ndim == 2 else a
+                        for a in sysm))
+
+
+class TestShardedSolvers:
+    """The solvers as the sharded program runs them: the same jnp code,
+    partitioned by GSPMD over the 2x4 mesh (halo collectives for the
+    stencil shifts, all-reduces for the dots), against one device."""
+
+    @pytest.mark.parametrize("quad", [True, False])
+    def test_pcg_matches_single_device(self, quad):
+        from octane_tpu.flow.cg import pcg_solve
+        from octane_tpu.flow.stencil import apply_stencil
+
+        mesh = make_mesh((2, 4))
+        s = _system(32, 64, quad)
+
+        def solve(s):
+            return pcg_solve(lambda a, b: apply_stencil(s, a, b),
+                             s.a1, s.a4, s.bu, s.bv, jnp.float32(1e-8), 10)
+
+        du, dv = jax.jit(solve)(s)
+        fsh = flow_sharding(mesh)
+        fu, fv = jax.jit(solve, out_shardings=(fsh, fsh))(_shard(s, mesh))
+        assert fu.sharding == fsh
+        scale = float(jnp.abs(du).max())
+        d = max(float(jnp.abs(fu - du).max()), float(jnp.abs(fv - dv).max()))
+        # the dots' partial sums are reduced in another order
+        assert d / scale < 1e-4, f"rel diff {d / scale:.2e} (quad={quad})"
+
+    @pytest.mark.parametrize("quad", [True, False])
+    @pytest.mark.parametrize("iters", [8, 13])
+    def test_sor_matches_single_device(self, quad, iters):
+        from octane_tpu.flow.cg import sor_solve
+
+        mesh = make_mesh((2, 4))
+        s = _system(32, 64, quad)
+
+        def solve(s):
+            return sor_solve(s, jnp.float32(1e-8), iters)
+
+        du, dv = jax.jit(solve)(s)
+        fsh = flow_sharding(mesh)
+        fu, fv = jax.jit(solve, out_shardings=(fsh, fsh))(_shard(s, mesh))
+        scale = float(jnp.abs(du).max())
+        d = max(float(jnp.abs(fu - du).max()), float(jnp.abs(fv - dv).max()))
+        assert d / scale < 2e-5, f"rel diff {d / scale:.2e} (quad={quad})"
 
 
 class TestPaddedSharding:

@@ -31,10 +31,29 @@ def _pair(h=20, w=24, seed=0, shift=1.3):
     return im1.astype(np.float32), im2.astype(np.float32)
 
 
+def _oracle_grads(g1, g2):
+    grads = {}
+    grads["gx1"], grads["gy1"] = (np.stack(a) for a in zip(*[ref.compgrad(c) for c in g1]))
+    grads["gx2"], grads["gy2"] = (np.stack(a) for a in zip(*[ref.compgrad(c) for c in g2]))
+    grads["gxx"] = np.stack([ref.compgrad(c)[0] for c in grads["gx2"]])
+    grads["gxy"] = np.stack([ref.compgrad(c)[0] for c in grads["gy2"]])
+    grads["gyy"] = np.stack([ref.compgrad(c)[1] for c in grads["gy2"]])
+    return grads
+
+
+COEFS = ("a1", "a2", "a4", "a5", "a6", "a7", "a8", "bu", "bv")
+
+
 class TestAssemblyParity:
-    @pytest.mark.parametrize("al1", [1.0, 0.5, 0.0])
+    # al1_static=1.0: the quadratic GNC step traced with al1 known, which
+    # skips the robust block and emits scalar -1 off-diagonals
+    @pytest.mark.parametrize("al1,al1_static", [
+        pytest.param(1.0, None, id="1.0"),
+        pytest.param(1.0, 1.0, id="1.0-static"),
+        pytest.param(0.5, None, id="0.5"),
+        pytest.param(0.0, None, id="0.0")])
     @pytest.mark.parametrize("dozim", [True, False])
-    def test_coefficients_match_oracle(self, al1, dozim):
+    def test_coefficients_match_oracle(self, al1, al1_static, dozim):
         im1, im2 = _pair()
         h, w = im1.shape
         rng = np.random.default_rng(1)
@@ -62,14 +81,49 @@ class TestAssemblyParity:
         got = assemble(jnp.asarray(g1), jnp.asarray(g2), gx1, gy1, gx2, gy2,
                        gxx, gxy, gyy, jnp.asarray(u), jnp.asarray(v),
                        jnp.asarray(uhat), jnp.asarray(vhat),
-                       al1, alpha, lam / alpha, lambdac, dozim)
-        for name, field in zip(
-            ("a1", "a2", "a4", "a5", "a6", "a7", "a8", "bu", "bv"), got
-        ):
+                       al1, alpha, lam / alpha, lambdac, dozim,
+                       al1_static=al1_static)
+        for name, field in zip(COEFS, got):
             np.testing.assert_allclose(
                 np.asarray(field), want[name], rtol=2e-4, atol=2e-4,
                 err_msg=f"coefficient {name} (al1={al1}, dozim={dozim})",
             )
+
+    def test_padded_assembly_matches_oracle(self):
+        """On an edge-padded (mesh-divisibility) frame with ``true_hw``, the
+        true pixels assemble the unpadded system and the padded pixels are
+        decoupled identity rows (a1 = a4 = 1, everything else 0)."""
+        im1, im2 = _pair()
+        h, w = im1.shape
+        hp, wp = h + 4, w + 8
+        rng = np.random.default_rng(3)
+        u = rng.normal(0, 1.5, (h, w)).astype(np.float32)
+        v = rng.normal(0, 1.5, (h, w)).astype(np.float32)
+        g1, g2 = im1[None], im2[None]
+        want = ref.assemble(g1, g2, _oracle_grads(g1, g2), u, v, u * 0, v * 0,
+                            0.5, 5.0, 0.2, 0.1, True)
+
+        def pad(a):
+            return jnp.asarray(np.pad(a, [(0, 0)] * (a.ndim - 2)
+                                      + [(0, hp - h), (0, wp - w)],
+                                      mode="edge"))
+
+        thw = (h, w)
+        p1, p2 = pad(g1), pad(g2)
+        gx1, gy1 = gradient_4th(p1, thw)
+        gx2, gy2 = gradient_4th(p2, thw)
+        gxx, _ = gradient_4th(gx2, thw)
+        gxy, gyy = gradient_4th(gy2, thw)
+        z = jnp.zeros((hp, wp), jnp.float32)
+        got = assemble(p1, p2, gx1, gy1, gx2, gy2, gxx, gxy, gyy,
+                       pad(u), pad(v), z, z, 0.5, 5.0, 0.2, 0.1, True,
+                       true_hw=thw)
+        for name, field in zip(COEFS, got):
+            field = np.asarray(field)
+            np.testing.assert_allclose(field[:h, :w], want[name],
+                                       rtol=2e-4, atol=2e-4, err_msg=name)
+            ident = 1.0 if name in ("a1", "a4") else 0.0
+            assert (field[h:] == ident).all() and (field[:, w:] == ident).all()
 
     def test_gradients_match_oracle(self):
         im1, _ = _pair()
@@ -145,6 +199,30 @@ class TestPCG:
 
 
 class TestEndToEnd:
+    def test_solve_level_matches_oracle(self):
+        """One pyramid level (3 GNC steps x liters relinearizations) with
+        first-guess hinting engaged (lambdac > 0, nonzero uhat/vhat)."""
+        from octane_tpu.flow.variational import solve_level
+
+        im1, im2 = _pair(16, 18, shift=1.0)
+        h, w = im1.shape
+        rng = np.random.default_rng(5)
+        uhat = rng.normal(1.0, 0.3, (h, w)).astype(np.float32)
+        vhat = rng.normal(0.0, 0.3, (h, w)).astype(np.float32)
+        alpha, lam, lambdac, tol = 5.0, 1.0, 0.2, 1e-8
+        want_u, want_v = ref.solve_level_matfree(
+            im1[None], im2[None], uhat.copy(), vhat.copy(), uhat, vhat,
+            alpha, lam, lambdac, 2, 10, tol, True)
+        got_u, got_v = solve_level(
+            jnp.asarray(im1[None]), jnp.asarray(im2[None]),
+            jnp.asarray(uhat), jnp.asarray(vhat),
+            jnp.asarray(uhat), jnp.asarray(vhat),
+            jnp.float32(alpha), jnp.float32(lam / alpha),
+            jnp.float32(lambdac), jnp.float32(tol),
+            liters=2, cgiters=10, gnc_steps=3, dozim=True)
+        np.testing.assert_allclose(np.asarray(got_u), want_u, atol=5e-3)
+        np.testing.assert_allclose(np.asarray(got_v), want_v, atol=5e-3)
+
     def test_full_solve_matches_oracle(self):
         im1, im2 = _pair(18, 22, shift=1.0)
         h, w = im1.shape

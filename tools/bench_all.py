@@ -1,10 +1,9 @@
-"""Run every BASELINE bench config and write BENCH_all_r{N}.json.
+"""Run every BASELINE bench config under both solvers into one JSON file.
 
-VERDICT round 2 asked for committed results for all five configs each
-round (bench.py --config {1..5}); this wrapper runs them sequentially on
-the chip and records one artifact.
+Each run is a child process (``bench.py --config C --solver S``), one at a
+time, so only one process holds the card; this parent never imports JAX.
 
-Usage: python tools/bench_all.py [--out BENCH_all_r03.json] [--configs 1 2 3]
+Usage: python tools/bench_all.py [--out bench_all.json] [--configs 1 2 3]
 """
 
 import argparse
@@ -19,10 +18,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(REPO, "BENCH_all_r03.json"))
+    ap.add_argument("--out", default="bench_all.json")
     ap.add_argument("--configs", type=int, nargs="*", default=[1, 2, 3, 4, 5])
     ap.add_argument("--timeout", type=int, default=5400)
     args = ap.parse_args()
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
 
     results = {}
     for c in args.configs:

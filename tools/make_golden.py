@@ -41,8 +41,8 @@ GOLD = os.path.join(os.path.dirname(__file__), "..", "tests", "golden")
 
 def goes_like_pair(hw, shift=(2.4, -1.1), seed=7):
     """Cloud-deck-like pair with hard edges + texture, normalized 0-255
-    like the pipeline's band normalization (same family as
-    tools/tpu_checks.cloud_scene, trimmed for oracle runtime)."""
+    like the pipeline's band normalization (trimmed for oracle
+    runtime)."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32)
 

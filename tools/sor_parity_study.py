@@ -7,9 +7,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache"))
 
 import numpy as np
 import jax
@@ -17,6 +14,7 @@ import jax.numpy as jnp
 
 from octane_tpu.config import OFConfig
 from octane_tpu.flow.variational import flow_program
+from octane_tpu.utils.cache import use_compile_cache
 
 
 def run(cfg, im1, im2):
@@ -36,6 +34,9 @@ def stats(u1, v1, u2, v2, label):
 
 
 def main():
+    use_compile_cache()
+    dev = jax.devices()[0]
+    print(f"device: {dev.platform} {dev.device_kind}")
     hw = 1356
     yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32)
     rng = np.random.default_rng(3)
